@@ -21,7 +21,7 @@ check:
 	$(PY) -m pytest tests/ -q
 
 native:
-	cc -O3 -march=native -shared -fPIC comet_tpu/native/*.c -o comet_tpu/native/_comet_native.so || cc -O3 -shared -fPIC comet_tpu/native/*.c -o comet_tpu/native/_comet_native.so
+	cc -O3 -shared -fPIC comet_tpu/native/*.c -o comet_tpu/native/_comet_native.so
 
 clean:
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

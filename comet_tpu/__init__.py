@@ -1,9 +1,9 @@
-"""comet_tpu — a TPU-native hybrid search engine (JAX/XLA/Pallas).
+"""comet_tpu — a hybrid search engine in JAX/XLA, run on an NVIDIA GPU.
 
 A from-scratch rebuild of the capabilities of the Go library wizenheimer/comet
-(see SURVEY.md), designed batch-first and array-first for TPU hardware:
+(see SURVEY.md), designed batch-first and array-first for an accelerator:
 
-- Five vector index types: Flat (exact MXU matmul scan), IVF, PQ, IVFPQ and
+- Five vector index types: Flat (exact matmul scan), IVF, PQ, IVFPQ and
   HNSW (batched beam search over CSR adjacency).
 - BM25 full-text search over CSR postings.
 - Metadata filtering with packed bitset planes + bit-sliced indexes (BSI).
@@ -13,8 +13,8 @@ A from-scratch rebuild of the capabilities of the Go library wizenheimer/comet
 
 Where the reference is one-query-at-a-time scalar Go (e.g. the flat scan at
 flat_index_search.go:254-274), this engine runs thousands of queries per step as
-tiled query x corpus matmuls on the MXU with fused masking, and scales across
-chips with jax.sharding over an ICI mesh.
+tiled query x corpus matmuls with fused masking, and scales across devices
+with jax.sharding over a 1-D device mesh.
 """
 
 from comet_tpu.types import (

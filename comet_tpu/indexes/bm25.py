@@ -346,9 +346,9 @@ class BM25SearchIndex:
     def _native_search_batch(self, queries, k, document_ids):
         """Batch scoring on the host C kernel; None when native is absent.
 
-        Posting iteration is irregular pointer work: the XLA scatter-add
-        path runs at ~1.5M posting-updates/s on the TPU while the C loop
-        does ~500M/s — this is the one hot path that stays native-host.
+        Posting iteration is irregular pointer work that a host C loop
+        walks sequentially — this is the one hot path that stays
+        native-host.
         """
         from comet_tpu import native
 
@@ -402,7 +402,7 @@ class BM25SearchIndex:
             np.where(miss, 0.0, scores).astype(np.float32),
         )
 
-    # -- device scoring path (TPU) --------------------------------------------
+    # -- device scoring path --------------------------------------------------
 
     def _device_postings(self):
         """Chunked dense postings in HBM: every term's (doc, tf) arrays split
@@ -456,7 +456,7 @@ class BM25SearchIndex:
         cutoff: int = -1,
         group_size: int = 1,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """TPU throughput API: each query string scores independently.
+        """Throughput API: each query string scores independently.
 
         Returns (ids [Q, k] uint32, scores [Q, k] f32); empty slots hold
         id == 0xFFFFFFFF / score == 0. Scoring runs on device: chunk gathers

@@ -8,19 +8,18 @@ aggregation/autocut/rerankers, binary serialization. Defaults: train needs
 sanitizes to nlist when out of range (ivf_index.go:410,
 ivf_index_search.go:232-236).
 
-TPU-native design: centroid ranking is one [Q, nlist] MXU matmul + top-k;
-the probe scan runs as a lax.scan over probe ranks — each step gathers one
-probed list's slots for every query from a padded [nlist, maxlen] slot
-table, computes masked distances as a batched matvec, and merges into the
-running [Q, k] with the deterministic (score, slot) two-key sort. Thousands
-of queries probe in lockstep; there is no per-query pointer chasing.
+Design: centroid ranking is one [Q, nlist] matmul + top-k; the probe scan
+is a lockstep while_loop over fixed-size inverted-list chunks — each step
+gathers one 256-row chunk of every query's current probed list, computes
+masked distances as a batched matvec, and merges into the running [Q, k]
+with the deterministic (score, slot) two-key sort. Thousands of queries
+probe in lockstep; there is no per-query pointer chasing, and the gathered
+rows track the probed lists' sizes.
 """
 
 from __future__ import annotations
 
-import logging
 import math
-import os
 from functools import partial
 from typing import BinaryIO, Iterable
 
@@ -34,7 +33,6 @@ from comet_tpu.core.limiter import sanitize_k
 from comet_tpu.core.node import VectorNode, reserve_node_ids
 from comet_tpu.indexes.base import (
     BaseVectorIndex,
-    INVALID_ID,
     VectorSearchBuilder,
     next_pow2,
     pad_queries,
@@ -52,8 +50,6 @@ from comet_tpu.types import (
     VectorIndexKind,
 )
 
-logger = logging.getLogger(__name__)
-
 MAGIC = b"CIVF"
 VERSION = 2  # v2: CRC32 payload trailer (v1 readable, no trailer check)
 
@@ -61,7 +57,9 @@ IVF_QUERY_CHUNK = 256
 LIST_CHUNK = 256  # inverted-list rows per fixed-size chunk
 
 
-@partial(jax.jit, static_argnames=("k", "kind", "nprobe", "max_steps"))
+@partial(
+    jax.jit, static_argnames=("k", "kind", "nprobe", "max_steps", "coarse_kind")
+)
 def _ivf_search_kernel(
     queries: jax.Array,      # [Q, d]
     centroids: jax.Array,    # [nlist, d]
@@ -75,6 +73,7 @@ def _ivf_search_kernel(
     kind: DistanceKind,
     nprobe: int,
     max_steps: int,
+    coarse_kind: DistanceKind | None = None,
 ):
     """Batched IVF probe-and-scan over FIXED-SIZE list chunks.
 
@@ -83,10 +82,13 @@ def _ivf_search_kernel(
     stored as contiguous 256-row chunks; every query walks a cursor over its
     probed lists' chunk ranges inside one while_loop, so total gather work
     tracks the actual list sizes (± one chunk per probe) and queries that
-    finish early idle under a mask. Returns (scores [Q,k], slots [Q,k]).
+    finish early idle under a mask. `coarse_kind` ranks the centroids in
+    another metric than the scan (default: `kind`). Returns
+    (scores [Q,k], slots [Q,k]).
     """
     Q = queries.shape[0]
-    cd = pairwise_scores(queries, centroids, kind)      # [Q, nlist]
+    ckind = kind if coarse_kind is None else coarse_kind
+    cd = pairwise_scores(queries, centroids, ckind)      # [Q, nlist]
     _, probes = lax.top_k(-cd, nprobe)                  # [Q, nprobe]
 
     qn = jnp.sum(queries * queries, axis=1, keepdims=True)  # [Q, 1]
@@ -146,26 +148,6 @@ def _ivf_search_kernel(
     return state[3], state[4]
 
 
-def _build_list_table(
-    order: np.ndarray,
-    sorted_assign: np.ndarray,
-    counts: np.ndarray,
-    nlist: int,
-    maxlen: int,
-) -> np.ndarray:
-    """Vectorized padded [nlist, maxlen] slot table from sorted assignments."""
-    table = np.full((nlist, maxlen), -1, dtype=np.int32)
-    pos0 = np.searchsorted(sorted_assign, 0)  # skip unassigned (-1)
-    assigned = order[pos0:]
-    lists = sorted_assign[pos0:]
-    if len(assigned):
-        starts = np.zeros(nlist, dtype=np.int64)
-        np.cumsum(counts[:-1], out=starts[1:])
-        cols = np.arange(len(assigned)) - starts[lists]
-        table[lists, cols] = assigned
-    return table
-
-
 def build_chunked_lists(
     assign: np.ndarray, nlist: int, chunk: int = LIST_CHUNK
 ) -> tuple[np.ndarray, np.ndarray, int]:
@@ -216,19 +198,6 @@ class IVFIndex(BaseVectorIndex):
         self._dev_chunk_start = None
         self._max_chunks = 1
         self._dev_centroids = None
-        # dense masked-scan cache (TPU fast path)
-        self._dense_version = -1
-        self._dev_t = None
-        self._dev_assign = None
-        # block-sparse scan cache (TPU pruned fast path)
-        self._sparse_version = -1
-        self._sparse = None          # dict of device arrays + budgets
-        self._order_key_src = None   # centroids object the order key is for
-        self._order_key = None
-        self._last_overflow = None   # [G] device array from the last batch
-        self._sparse_overflow_batches = 0  # batches that needed a rescan
-        self._sparse_overflow_chunks = 0   # total chunks initially dropped
-        self._sparse_S_hint: dict = {}     # (nprobe, k_pad) -> learned S
 
     # -- contracts -----------------------------------------------------------
 
@@ -250,8 +219,6 @@ class IVFIndex(BaseVectorIndex):
         s = super().stats()
         s["nlist"] = self._nlist
         s["trained"] = self._trained
-        s["sparse_overflow_batches"] = self._sparse_overflow_batches
-        s["sparse_overflow_chunks"] = self._sparse_overflow_chunks
         return s
 
     # -- training --------------------------------------------------------------
@@ -366,134 +333,6 @@ class IVFIndex(BaseVectorIndex):
     def _search_batch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         return self._search_collect(self._search_launch(queries, builder))
 
-    def _device_sparse(self):
-        """Cluster-major layout for the block-sparse scan (ops/ivf_sparse),
-        rebuilt when contents change. Soft-deleted slots are dropped from
-        the layout; padding rows carry +inf in the additive mask."""
-        import jax
-
-        from comet_tpu.ops import ivf_sparse as sp
-
-        if self._order_key_src is not self._centroids:
-            self._order_key = jnp.asarray(
-                sp.cluster_order_key(self._centroids)
-            )
-            self._order_key_src = self._centroids
-        if self._sparse_version != self._store.version:
-            n = self._store.n
-            assign = np.where(
-                self._store.valid[:n], self._assign[:n], -1
-            ).astype(np.int32)
-            lay = sp.build_cluster_major(assign, self._nlist)
-            perm = jnp.asarray(lay["perm"])
-            vecs, sqnorms, _ = self._store.device_state()
-            cosine = self._distance_kind == DistanceKind.COSINE
-
-            @jax.jit
-            def build(perm, vecs, sqnorms):
-                pc = jnp.maximum(perm, 0)
-                rows_t = vecs[pc].T                       # [d, NR]
-                base = jnp.zeros_like(sqnorms[pc]) if cosine else sqnorms[pc]
-                mask = jnp.where(perm >= 0, base, jnp.inf)
-                return rows_t, mask
-
-            corpus_t, mask_vec = build(perm, vecs, sqnorms)
-            self._sparse_S_hint.clear()  # budgets learned on the old layout
-            self._sparse = {
-                "corpus_t": corpus_t,
-                "mask_vec": mask_vec,
-                "row_slot": perm,
-                "chunk_start": jnp.asarray(lay["chunk_start"]),
-                "nchunks": jnp.asarray(lay["nchunks"]),
-                "nch_total": int(lay["chunk_start"][-1]),
-                "max_chunks": lay["max_chunks"],
-            }
-            self._sparse_version = self._store.version
-        return self._sparse
-
-    def _launch_sparse(
-        self, qpad, q_real, k_pad, k_eff, nprobe, builder, S_override=None
-    ):
-        """Block-sparse pruned scan: compute tracks nprobe (VERDICT r2 #3).
-
-        The pipeline's per-group chunk walk has a static step budget S; a
-        probe-diverse batch can want more chunks than S (or more distinct
-        clusters than UC). The returned handle carries the per-group
-        overflow counts — `_search_collect` checks them on the same sync
-        that fetches results and rescans with escalated budgets until the
-        scan covers every requested probe. Each escalation also updates
-        `_sparse_S_hint[(nprobe, k_pad)]` so subsequent batches of the same
-        shape start right-sized (serving traffic repeats shapes; without
-        the hint every batch would pay the double scan)."""
-        import jax
-
-        from comet_tpu.ops import ivf_sparse as sp
-
-        st = self._device_sparse()
-        cosine = self._distance_kind == DistanceKind.COSINE
-        thr = threshold_scalar(builder._threshold)
-        thr_k = thr * thr if self._distance_kind == DistanceKind.L2 else thr
-        if qpad.shape[0] % sp.QG != 0:
-            grown = np.zeros(
-                (-(-qpad.shape[0] // sp.QG) * sp.QG, qpad.shape[1]), np.float32
-            )
-            grown[: qpad.shape[0]] = qpad
-            qpad = grown
-        mask_vec = st["mask_vec"]
-        doc_filter = DocumentFilter(builder._document_ids)
-        fmask = doc_filter.slot_mask(self._store.ids)
-        if fmask is not None:
-            fm = jnp.asarray(fmask)[jnp.maximum(st["row_slot"], 0)]
-            mask_vec = jnp.where(fm, mask_vec, jnp.inf)
-        S, UC, MC = sp.default_budgets(
-            nprobe, self._nlist, st["nch_total"], st["max_chunks"]
-        )
-        S = max(S, self._sparse_S_hint.get((nprobe, k_pad), 0))
-        S_max = 1 << max(int(st["nch_total"] - 1).bit_length(), 5)
-        if S_override is not None:
-            S = max(S_override, S)
-        S = min(S, S_max)
-        UC = min(S, self._nlist)
-        s, i, overflow = sp.ivf_sparse_pipeline(
-            upload_f32_exact(qpad), st["corpus_t"], mask_vec, st["row_slot"],
-            thr_k, jnp.asarray(self._centroids), self._order_key,
-            st["chunk_start"], st["nchunks"],
-            k=k_pad, nprobe=nprobe, S=S, UC=UC, MC=MC, nlist=self._nlist,
-            coarse_cosine=cosine, cosine=cosine,
-            sqrt_out=self._distance_kind == DistanceKind.L2,
-        )
-        self._last_overflow = overflow
-        try:
-            s.copy_to_host_async()
-            i.copy_to_host_async()
-            overflow.copy_to_host_async()
-        except AttributeError:  # pragma: no cover
-            pass
-        # overflow counts chunks dropped beyond the EFFECTIVE budget (the
-        # pipeline bumps S up to kb*sel_group/chunk internally) — the retry
-        # escalation must start from that effective value
-        kb = max(1 << max(k_pad - 1, 1).bit_length(), 8)
-        S_eff = max(S, -(-kb * sp.SEL_GROUP // sp.CHUNK))
-        retry = None
-        if S_eff < S_max:
-            retry = (qpad, q_real, k_pad, k_eff, nprobe, builder, S_eff, S_max)
-        return ("sparse", s, i, q_real, k_eff, self._store.ids, overflow, retry)
-
-    def _device_dense(self):
-        """Transposed corpus + device assign vector for the dense masked
-        scan, rebuilt when contents change (invalid slots carry -1, which
-        never matches a probed cluster id)."""
-        if self._dense_version != self._store.version:
-            import jax
-
-            vecs, _, _ = self._store.device_state()
-            self._dev_t = jax.jit(lambda v: v.T)(vecs)
-            self._dev_assign = jnp.asarray(
-                self._assign[: self._store.capacity]
-            )
-            self._dense_version = self._store.version
-        return self._dev_t, self._dev_assign
-
     def _search_launch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         if not self._trained:
             raise NotTrainedError("index must be trained before searching")
@@ -516,80 +355,6 @@ class IVFIndex(BaseVectorIndex):
             valid = jnp.logical_and(valid, jnp.asarray(fmask))
         thr = threshold_scalar(builder._threshold)
 
-        from comet_tpu.ops.pallas_scan import (
-            GROUP as P_GROUP,
-            TN as P_TN,
-            TQ as P_TQ,
-            ivf_topk_pipeline,
-            pallas_available,
-        )
-
-        # Block-sparse pruned scan: preferred at scale (compute tracks
-        # nprobe; no [Q, N] work, no 2^21 capacity gate). COMET_IVF_SPARSE=0
-        # disables; =1 forces it even on small corpora (tests).
-        sparse_env = os.environ.get("COMET_IVF_SPARSE", "")
-        # the dense kernel's VMEM stack scales with the padded probe count:
-        # nprobe_pad=64 at TQ=256 overflows the 16M scoped limit (measured),
-        # so high-nprobe searches must take the sparse path
-        npad = max(1 << max(nprobe - 1, 1).bit_length(), 8)
-        use_sparse = (
-            pallas_available()
-            and sparse_env != "0"
-            and (
-                store.capacity >= (1 << 19)
-                or sparse_env == "1"
-                or npad > 32
-            )
-            and self._nlist >= 8
-            and nprobe < self._nlist
-        )
-        use_dense = (
-            pallas_available()
-            and store.capacity % P_TN == 0
-            and store.capacity <= (1 << 21)
-            and max(k_pad, 8) <= store.capacity // P_GROUP
-            and min(npad, self._nlist) <= 32
-        )
-        if use_sparse and use_dense and self._sparse is not None:
-            # DEGENERATE-SHAPE fallback: when probe-diverse batches have
-            # already escalated the learned step budget toward the whole
-            # table, each 128-query group walks most chunks anyway and the
-            # sparse scan's gather layout only adds overhead over the dense
-            # masked pipeline — route to dense while it remains available.
-            hint = self._sparse_S_hint.get((nprobe, k_pad), 0)
-            if 2 * hint >= self._sparse["nch_total"]:
-                use_sparse = False
-        if use_sparse:
-            return self._launch_sparse(
-                qpad, q_real, k_pad, k_eff, nprobe, builder
-            )
-        if use_dense:
-            cosine = self._distance_kind == DistanceKind.COSINE
-            thr_k = thr * thr if self._distance_kind == DistanceKind.L2 else thr
-            mask_vec = jnp.where(valid, 0.0 if cosine else sqnorms, jnp.inf)
-            if qpad.shape[0] % P_TQ != 0:
-                grown = np.zeros(
-                    (-(-qpad.shape[0] // P_TQ) * P_TQ, qpad.shape[1]), np.float32
-                )
-                grown[: qpad.shape[0]] = qpad
-                qpad = grown
-            corpus_t, assign_dev = self._device_dense()
-            s, i = ivf_topk_pipeline(
-                upload_f32_exact(qpad), corpus_t, mask_vec, thr_k,
-                jnp.asarray(self._centroids), assign_dev,
-                k_pad, nprobe,
-                coarse_cosine=cosine, cosine=cosine,
-                sqrt_out=self._distance_kind == DistanceKind.L2,
-            )
-            try:
-                if builder._wire_scores:
-                    s.copy_to_host_async()
-                i.copy_to_host_async()
-            except AttributeError:  # pragma: no cover
-                pass
-            return ("dev", s if builder._wire_scores else None, i, q_real,
-                    k_eff, store.ids)
-
         centroids, chunk_slots, chunk_start, max_chunks = self._device_buckets()
         max_steps = next_pow2(nprobe * max_chunks, 4)
         chunks = []
@@ -604,46 +369,8 @@ class IVFIndex(BaseVectorIndex):
         return ("dev_chunks", chunks, q_real, k_eff, store.ids)
 
     def _search_collect(self, handle):
-        import jax
-
         from comet_tpu.indexes.base import collect_device_handle
 
-        if handle[0] == "sparse":
-            _, s, i, q_real, k_eff, ids, overflow, retry = handle
-            ov = np.asarray(jax.device_get(overflow))
-            dropped = int(ov.sum())
-            if dropped > 0:
-                self._sparse_overflow_batches += 1
-                self._sparse_overflow_chunks += dropped
-            # escalate the step budget past the worst group's want and
-            # rescan until clean or capped at the table size — exactness
-            # beats the saved DMA steps; the S hint makes this a
-            # first-batch-only cost per (nprobe, k) shape
-            while dropped > 0 and retry is not None:
-                qpad, q_real, k_pad, k_eff, nprobe, builder, S_old, S_max = retry
-                S_new = min(
-                    1 << int(S_old + int(ov.max()) - 1).bit_length(), S_max
-                )
-                if S_new <= S_old:  # pragma: no cover - cap reached
-                    logger.warning(
-                        "ivf sparse scan overflow at max budget: %d chunk(s)",
-                        dropped,
-                    )
-                    break
-                logger.warning(
-                    "ivf sparse scan overflow: %d chunk(s) dropped across "
-                    "%d group(s); rescanning with S=%d (was %d)",
-                    dropped, int((ov > 0).sum()), S_new, S_old,
-                )
-                self._sparse_S_hint[(nprobe, k_pad)] = S_new
-                h2 = self._launch_sparse(
-                    qpad, q_real, k_pad, k_eff, nprobe, builder,
-                    S_override=S_new,
-                )
-                _, s, i, q_real, k_eff, ids, overflow, retry = h2
-                ov = np.asarray(jax.device_get(overflow))
-                dropped = int(ov.sum())
-            handle = ("dev", s, i, q_real, k_eff, ids)
         return collect_device_handle(handle)
 
     # -- serialization ----------------------------------------------------------

@@ -399,7 +399,7 @@ class RoaringMetadataIndex:
     def add_columns(self, doc_ids, columns: dict) -> None:
         """Columnar bulk insert: one numpy array per field.
 
-        The TPU-native bulk-ingest shape (same design move as the vector
+        The array-first bulk-ingest shape (same design move as the vector
         indexes' `add_batch`): numeric columns become ONE vectorized
         fixed-point convert + dense-array scatter, categorical columns
         group by unique value and apply one packed-word `add_many` per

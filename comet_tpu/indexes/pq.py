@@ -8,10 +8,11 @@ per-query LUT of squared subspace distances and sqrt'd sums
 aggregation / autocut / rerankers, binary serialization, and the
 `calculate_pq_params` helper (pq_index.go:50-67).
 
-TPU-native design: training vmaps k-means per subspace, encoding is a
-batched einsum+argmin, and ADC is a one-hot [Q, M*Ksub] x [M*Ksub, T] MXU
-matmul per corpus tile with exact block-select top-k (ops/adc.py). Codes are
-int32 on device (MXU-friendly one-hot), uint8/uint16 on disk.
+Design: training vmaps k-means per subspace, encoding is a batched
+einsum+argmin, and ADC is a one-hot [Q, M*Ksub] x [M*Ksub, T] matmul per
+corpus tile with exact block-select top-k (ops/adc.py). Codes are uint8 on
+device when Ksub <= 256 (cast to int32 for the one-hot), uint8/uint16 on
+disk.
 
 Node-based queries and result nodes use the DECODED (reconstructed)
 vectors — the index no longer has the originals, by design.
@@ -29,19 +30,16 @@ from comet_tpu.core.limiter import sanitize_k
 from comet_tpu.core.node import VectorNode, reserve_node_ids
 from comet_tpu.indexes.base import (
     BaseVectorIndex,
-    INVALID_ID,
     SlotStore,
     VectorSearchBuilder,
     next_pow2,
     pad_queries,
-    upload_f32_exact,
     threshold_scalar,
 )
 from comet_tpu.io import serial
 from comet_tpu.ops.adc import adc_topk, build_lut, pq_decode, pq_encode
 from comet_tpu.ops.distance import preprocess
 from comet_tpu.ops.kmeans import kmeans_subspace
-from comet_tpu.ops.topk import IDX_SENTINEL
 from comet_tpu.types import (
     DistanceKind,
     InvalidConfigError,
@@ -94,8 +92,8 @@ class PQIndex(BaseVectorIndex):
         self._ksub = 1 << nbits
         self._dsub = dim // m
         # OPQ extension (same design as IVFPQIndex: the model lives in
-        # rotated coordinates, serving stays in user coordinates — the
-        # decoded-scan cache rotates back at build time).
+        # rotated coordinates, serving stays in user coordinates — queries
+        # rotate into model space before the LUT is built).
         self._opq = bool(opq)
         self._opq_iters = int(opq_iters)
         self._rot: np.ndarray | None = None
@@ -105,9 +103,6 @@ class PQIndex(BaseVectorIndex):
         self._codebooks: np.ndarray | None = None  # [M, Ksub, dsub]
         self._trained = False
         self._dev_version = -1
-        self._decoded_version = -1
-        self._dev_rec_t = None
-        self._dev_rec_sqn = None
         self._dev_codes = None
         self._dev_codebooks = None
 
@@ -156,7 +151,6 @@ class PQIndex(BaseVectorIndex):
             # reference has the same limitation; retraining with content is
             # only valid on an empty index.
             self._dev_version = -1
-            self._decoded_version = -1
 
     def _train_opq(self, prepped: np.ndarray, max_iter: int) -> np.ndarray:
         """OPQ-NP alternation (see IVFPQIndex._train_opq; here the model
@@ -304,52 +298,11 @@ class PQIndex(BaseVectorIndex):
             code_np = (
                 self._codes.astype(np.uint8) if self._ksub <= 256
                 else self._codes
-            )  # narrow wire/HBM; consumers cast to i32 on read
+            )  # narrow transfer and storage; consumers cast to i32
             self._dev_codes = jnp.asarray(code_np)
             self._dev_codebooks = jnp.asarray(self._codebooks)
             self._dev_version = self._store.version
         return self._dev_codes, self._dev_codebooks
-
-    def _device_decoded(self):
-        """Decoded corpus, TRANSPOSED [d, cap], for the dense MXU scan.
-
-        ADC distance equals the L2 distance to the decoded vector exactly
-        (sum over subspaces of ||q_m - codebook[m, code_m]||^2 IS
-        ||q - decode(code)||^2), so a flat scan of the reconstructions
-        returns ADC scores without the one-hot LUT contraction — at ~1/32
-        of the MXU work for m=16, Ksub=256. Codes stay authoritative; this
-        is a per-version search-time device cache.
-        """
-        if self._decoded_version != self._store.version:
-            import jax
-
-            from comet_tpu.ops.adc import pq_decode
-
-            cap = self._store.capacity
-
-            from comet_tpu.ops.distance import DEFAULT_PRECISION
-
-            @jax.jit
-            def build(codes, codebooks, rot_t):
-                rec = pq_decode(codes.astype(jnp.int32), codebooks)
-                if rot_t is not None:
-                    rec = jnp.dot(rec, rot_t,
-                                  preferred_element_type=jnp.float32,
-                                  precision=DEFAULT_PRECISION)
-                return rec.T, jnp.sum(rec * rec, axis=1)
-
-            code_np = (
-                self._codes[:cap].astype(np.uint8) if self._ksub <= 256
-                else self._codes[:cap]
-            )
-            rec_t, sqn = build(
-                jnp.asarray(code_np), jnp.asarray(self._codebooks),
-                jnp.asarray(self._rot.T) if self._rot is not None else None,
-            )
-            self._dev_rec_t = rec_t
-            self._dev_rec_sqn = sqn
-            self._decoded_version = self._store.version
-        return self._dev_rec_t, self._dev_rec_sqn
 
     def _search_batch(self, queries: np.ndarray, builder: VectorSearchBuilder):
         return self._search_collect(self._search_launch(queries, builder))
@@ -374,43 +327,6 @@ class PQIndex(BaseVectorIndex):
         if fmask is not None:
             valid = jnp.logical_and(valid, jnp.asarray(fmask))
         thr = threshold_scalar(builder._threshold)
-
-        from comet_tpu.ops.pallas_scan import (
-            GROUP as P_GROUP,
-            TN as P_TN,
-            TQ as P_TQ,
-            flat_topk_pipeline,
-            pallas_available,
-        )
-
-        use_dense = (
-            pallas_available()
-            and store.capacity % P_TN == 0
-            and store.capacity <= (1 << 21)
-            and max(k_pad, 8) <= store.capacity // P_GROUP
-        )
-        if use_dense:
-            rec_t, rec_sqn = self._device_decoded()
-            # ADC takes sqrt for every metric (pq_index_search.go:292-296)
-            mask_vec = jnp.where(valid, rec_sqn, jnp.inf)
-            if qpad.shape[0] % P_TQ != 0:
-                grown = np.zeros(
-                    (-(-qpad.shape[0] // P_TQ) * P_TQ, qpad.shape[1]), np.float32
-                )
-                grown[: qpad.shape[0]] = qpad
-                qpad = grown
-            s, i = flat_topk_pipeline(
-                upload_f32_exact(qpad), rec_t, mask_vec, thr * thr, k_pad,
-                cosine=False, sqrt_out=True,
-            )
-            try:
-                if builder._wire_scores:
-                    s.copy_to_host_async()
-                i.copy_to_host_async()
-            except AttributeError:  # pragma: no cover
-                pass
-            return ("dev", s if builder._wire_scores else None, i, q_real,
-                    k_eff, store.ids)
 
         codes_dev, codebooks_dev = self._device_codes()
         if self._rot is not None:
@@ -498,4 +414,3 @@ class PQIndex(BaseVectorIndex):
                 )
                 self._codes[slots] = codes.astype(np.int32)
             self._dev_version = -1
-            self._decoded_version = -1

@@ -14,44 +14,43 @@ Two implementations, differentially tested against each other
 
 - ``segment_slow``: a direct, rule-by-rule transcription of TR29's WB1-WB999
   (the executable spec; also the arbiter when the fast path is in doubt).
-- ``segment``: a single compiled ``regex`` pattern whose alternatives encode
+- ``segment``: a single compiled ``re`` pattern whose alternatives encode
   the same grammar (CR+LF, newline, WSegSpace runs, the letter/number/
   katakana/ExtendNumLet word cluster with mid-letter links, regional-
   indicator pairs, then any-char), running at C speed for the ingest path.
 
-Word-break properties come from the ``regex`` module's Unicode database
-(``\\p{Word_Break=...}``); there is no vendored table to go stale.
+Word-break properties come from the committed code-point tables in
+``uax29_tables`` (generated from the ``regex`` package's Unicode database by
+scripts/gen_uax29_tables.py), so only the standard library is needed here.
 """
 
 from __future__ import annotations
 
-import regex
+import bisect
+import re
+import unicodedata
+
+from comet_tpu.indexes.uax29_tables import EXTENDED_PICTOGRAPHIC, WORD_BREAK
 
 # -- word-break property lookup (slow path) ---------------------------------
 
-# order matters only for building the lookup; classes are disjoint by spec
-_WB_CLASSES = [
-    "CR",
-    "LF",
-    "Newline",
-    "Extend",
-    "ZWJ",
-    "Regional_Indicator",
-    "Format",
-    "Katakana",
-    "Hebrew_Letter",
-    "ALetter",
-    "Single_Quote",
-    "Double_Quote",
-    "MidNumLet",
-    "MidLetter",
-    "MidNum",
-    "Numeric",
-    "ExtendNumLet",
-    "WSegSpace",
-]
-_WB_RE = {name: regex.compile(rf"\p{{Word_Break={name}}}") for name in _WB_CLASSES}
-_EXT_PICT_RE = regex.compile(r"\p{Extended_Pictographic}")
+# the classes are disjoint by spec, so one sorted range list serves them all
+_RANGES = sorted(
+    (lo, hi, name) for name, rs in WORD_BREAK.items() for lo, hi in rs
+)
+_RANGE_LO = [r[0] for r in _RANGES]
+_EP_LO = [lo for lo, _ in EXTENDED_PICTOGRAPHIC]
+
+
+def _in_ranges(cp: int, los: list[int], ranges) -> int:
+    """Index of the range holding code point `cp`, or -1."""
+    i = bisect.bisect_right(los, cp) - 1
+    return i if i >= 0 and cp <= ranges[i][1] else -1
+
+
+def _is_ext_pict(ch: str) -> bool:
+    return _in_ranges(ord(ch), _EP_LO, EXTENDED_PICTOGRAPHIC) >= 0
+
 
 _prop_cache: dict[str, str] = {}
 
@@ -59,11 +58,8 @@ _prop_cache: dict[str, str] = {}
 def _wb_prop(ch: str) -> str:
     p = _prop_cache.get(ch)
     if p is None:
-        p = "Other"
-        for name in _WB_CLASSES:
-            if _WB_RE[name].match(ch):
-                p = name
-                break
+        i = _in_ranges(ord(ch), _RANGE_LO, _RANGES)
+        p = _RANGES[i][2] if i >= 0 else "Other"
         _prop_cache[ch] = p
     return p
 
@@ -80,7 +76,7 @@ def segment_slow(text: str) -> list[str]:
     if n == 0:
         return []
     props = [_wb_prop(c) for c in text]
-    ext_pict = [bool(_EXT_PICT_RE.match(c)) for c in text]
+    ext_pict = [_is_ext_pict(c) for c in text]
 
     def prev_base(i: int) -> int:
         """Largest j < i with a non-Extend/Format/ZWJ property, or -1."""
@@ -174,64 +170,92 @@ def segment_slow(text: str) -> list[str]:
     return out
 
 
-# -- fast path: the same grammar as one compiled regex -----------------------
+# -- fast path: the same grammar as one compiled pattern ---------------------
 
-def _build_pattern() -> "regex.Pattern":
+def _cls(*names: str) -> str:
+    """A ``re`` character class over the code points of the named
+    Word_Break classes ("ExtPict" = Extended_Pictographic)."""
+    parts = []
+    for name in names:
+        rs = EXTENDED_PICTOGRAPHIC if name == "ExtPict" else WORD_BREAK[name]
+        for lo, hi in rs:
+            parts.append(
+                f"\\U{lo:08x}" if lo == hi else f"\\U{lo:08x}-\\U{hi:08x}"
+            )
+    return "[" + "".join(parts) + "]"
+
+
+def _build_pattern() -> "re.Pattern":
     CR = r"\r"
     LF = r"\n"
     NLCLS = "[\\r\\n\\x0b\\x0c\\x85\\u2028\\u2029]"
-    EFZ = r"[\p{Word_Break=Extend}\p{Word_Break=Format}\p{Word_Break=ZWJ}]"
+    EFZ = _cls("Extend", "Format", "ZWJ")
     # WB4 absorption after every char
     E = rf"{EFZ}*+"
     # WB3c: a literal trailing ZWJ pulls in a following Extended_Pictographic
     # (which may itself chain ZWJ+ExtPict). The pictograph folds as Other, so
-    # no word rule can continue past it \u2014 the absorption is TERMINAL and is
+    # no word rule can continue past it — the absorption is TERMINAL and is
     # appended once at the end of each token alternative, not inside E.
-    T = rf"(?:(?<=\u200d)\p{{Extended_Pictographic}}{EFZ}*+)*+"
-    WS = r"\p{Word_Break=WSegSpace}"
-    AL = r"[\p{Word_Break=ALetter}\p{Word_Break=Hebrew_Letter}]"
-    HL = r"\p{Word_Break=Hebrew_Letter}"
-    NU = r"\p{Word_Break=Numeric}"
-    KA = r"\p{Word_Break=Katakana}"
-    EXNL = r"\p{Word_Break=ExtendNumLet}"
-    LMID = r"[\p{Word_Break=MidLetter}\p{Word_Break=MidNumLet}\p{Word_Break=Single_Quote}]"
-    NMID = r"[\p{Word_Break=MidNum}\p{Word_Break=MidNumLet}\p{Word_Break=Single_Quote}]"
-    DQ = r"\p{Word_Break=Double_Quote}"
-    SQ = r"\p{Word_Break=Single_Quote}"
-    RI = r"\p{Word_Break=Regional_Indicator}"
+    T = rf"(?:(?<=\u200d){_cls('ExtPict')}{EFZ}*+)*+"
+    WS = _cls("WSegSpace")
+    AL = _cls("ALetter", "Hebrew_Letter")
+    HL = _cls("Hebrew_Letter")
+    NU = _cls("Numeric")
+    KA = _cls("Katakana")
+    EXNL = _cls("ExtendNumLet")
+    LMID = _cls("MidLetter", "MidNumLet", "Single_Quote")
+    NMID = _cls("MidNum", "MidNumLet", "Single_Quote")
+    DQ = _cls("Double_Quote")
+    RI = _cls("Regional_Indicator")
 
-    after_hl = rf"(?<={HL}{EFZ}*)"  # folded left context is a Hebrew letter
-    Lx = rf"{AL}{E}"
-    # links between AHLetters: WB6/7 (MidLetter|MidNumLetQ), WB7b/c (HL " HL)
-    Lmid = rf"(?:{LMID}{E}|{after_hl}{DQ}{E}(?={HL}))"
-    Lrun = rf"{Lx}(?:(?:{Lmid})?{Lx})*"
+    # WB7b/c (HL " HL): the Hebrew letter itself carries the link, since
+    # ``re`` has no variable-width lookbehind to test the folded left
+    # context at the quote
+    Lx = rf"(?:{HL}{E}(?:{DQ}{E}(?={HL}))?|{AL}{E})"
+    # links between AHLetters: WB6/7 (MidLetter|MidNumLetQ)
+    Lrun = rf"{Lx}(?:(?:{LMID}{E})?{Lx})*"
     Nx = rf"{NU}{E}"
     Nrun = rf"{Nx}(?:(?:{NMID}{E})?{Nx})*"
     LN = rf"(?:{Lrun}|{Nrun})+"  # WB9/WB10: letters and digits adjoin freely
     KArun = rf"(?:{KA}{E})+"
     EXrun = rf"(?:{EXNL}{E})+"
     Block = rf"(?:{LN}|{KArun})"
-    # WB7a: a trailing single-quote after a Hebrew letter is TERMINAL — no
-    # rule continues past folded-SQ, so it sits at the end of Word, outside
-    # the run grammar (else "ג'0" would wrongly pull the numeral in)
-    trail_sq = rf"(?:{after_hl}{SQ}{E})?"
-    Word = rf"(?:(?:{EXrun})?{Block}(?:{EXrun}{Block})*(?:{EXrun})?{trail_sq}|{EXrun})"
+    # WB7a (a single quote after a Hebrew letter) is TERMINAL and needs the
+    # folded left context: segment() attaches it after matching
+    Word = rf"(?:(?:{EXrun})?{Block}(?:{EXrun}{Block})*(?:{EXrun})?|{EXrun})"
     RIpair = rf"{RI}{E}{RI}{E}|{RI}{E}"
     Any = rf".{E}"
 
-    return regex.compile(
+    return re.compile(
         rf"{CR}{LF}|{NLCLS}|(?:{WS}+{E}|{Word}|{RIpair}|{Any}){T}",
-        regex.DOTALL,
+        re.DOTALL,
     )
 
 
 _PATTERN = _build_pattern()
+_EFZ_TAIL = re.compile(_cls("Extend", "Format", "ZWJ") + "*$")
 
 
-def _build_ascii_pattern() -> "regex.Pattern":
+def _attach_hebrew_quotes(tokens: list[str]) -> list[str]:
+    """WB7a: Hebrew_Letter x Single_Quote. A word whose last letter (past
+    any Extend/Format/ZWJ) is Hebrew keeps the quote token that follows it;
+    nothing continues past that quote, so the whole token joins."""
+    out: list[str] = []
+    for tok in tokens:
+        if out and tok[0] == "'":
+            prev = out[-1]
+            base = prev[: _EFZ_TAIL.search(prev).start()]
+            if base and _wb_prop(base[-1]) == "Hebrew_Letter":
+                out[-1] = prev + tok
+                continue
+        out.append(tok)
+    return out
+
+
+def _build_ascii_pattern() -> "re.Pattern":
     """The same grammar restricted to ASCII (no Extend/Format/ZWJ, no
     Hebrew/Katakana/Regional_Indicator exist below U+0080), compiled from
-    plain character classes — ~20x faster than the Unicode-property form.
+    plain character classes — many times faster than the full-Unicode form.
     ASCII WB classes (exhaustively enumerated in tests/test_uax29.py):
     ALetter=[A-Za-z] Numeric=[0-9] ExtendNumLet=[_] MidLetter=[:]
     MidNumLet=[.] MidNum=[,;] Single_Quote=['] WSegSpace=[ ]
@@ -240,10 +264,7 @@ def _build_ascii_pattern() -> "regex.Pattern":
     Nrun = r"[0-9]+(?:[.,;'][0-9]+)*"
     LN = rf"(?:{Lrun}|{Nrun})+"
     Word = rf"(?:_*{LN}(?:_+{LN})*_*|_+)"
-    # stdlib re is ~2x faster than the regex module on plain ASCII classes
-    import re as _stdlib_re
-
-    return _stdlib_re.compile(rf"\r\n|[\r\n\x0b\x0c]| +|{Word}|.", _stdlib_re.DOTALL)
+    return re.compile(rf"\r\n|[\r\n\x0b\x0c]| +|{Word}|.", re.DOTALL)
 
 
 _ASCII_PATTERN = _build_ascii_pattern()
@@ -256,13 +277,13 @@ def segment(text: str) -> list[str]:
         return []
     if text.isascii():
         return _ASCII_PATTERN.findall(text)
-    return _PATTERN.findall(text)
+    return _attach_hebrew_quotes(_PATTERN.findall(text))
 
 
 def wordlike(tokens: list[str]) -> list[str]:
     """Optional filter: keep only segments containing a letter or digit
     (NOT what the reference does — it indexes every segment)."""
-    return [t for t in tokens if _WORDLIKE_RE.search(t)]
-
-
-_WORDLIKE_RE = regex.compile(r"[\p{L}\p{N}]")
+    return [
+        t for t in tokens
+        if any(unicodedata.category(c)[0] in "LN" for c in t)
+    ]

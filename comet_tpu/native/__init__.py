@@ -32,19 +32,20 @@ def _stale() -> bool:
 
 
 def _build() -> bool:
+    """Compile for the architecture's baseline instruction set (no
+    -march=native): a copied checkout may carry the binary to another CPU,
+    where host-specific instructions would raise SIGILL."""
     cc = os.environ.get("CC", "cc")
-    for flags in (["-O3", "-march=native"], ["-O3"]):
-        try:
-            subprocess.run(
-                [cc, *flags, "-shared", "-fPIC", *_SRCS, "-o", _SO],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-            return True
-        except Exception:
-            continue
-    return False
+    try:
+        subprocess.run(
+            [cc, "-O3", "-shared", "-fPIC", *_SRCS, "-o", _SO],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _load():

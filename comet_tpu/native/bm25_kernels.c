@@ -1,14 +1,12 @@
 /* Native BM25 batch scorer.
  *
- * Posting-list scoring is irregular pointer work — the one part of the
- * engine where a CPU loop beats anything expressible on the MXU (an XLA
- * scatter-add over [Q, N] runs at ~1.5M updates/s on the TPU; this loop
- * does ~500M/s). Layout: all terms' postings concatenated into flat
- * (docs, tfs) arrays; each query brings (start, len, idf) triples for its
- * terms. Per query: accumulate into a dense score buffer while appending
- * each doc to a candidate list on FIRST touch (every BM25 contribution is
- * strictly positive, so buffer==0 identifies first touch); the collect
- * pass then walks the candidate list once — not the postings again —
+ * Posting-list scoring is irregular pointer work — the one part of the engine
+ * that stays a sequential host loop. Layout: all terms' postings concatenated
+ * into flat (docs, tfs) arrays; each query brings (start, len, idf) triples
+ * for its terms. Per query: accumulate into a dense score buffer while
+ * appending each doc to a candidate list on FIRST touch (every BM25
+ * contribution is strictly positive, so buffer==0 identifies first touch); the
+ * collect pass then walks the candidate list once — not the postings again —
  * halving the random-access traffic, and zeroes each entry so the buffer
  * is reset for the next query without a 4 MB memset.
  *

@@ -1,1 +1,1 @@
-"""Device-side compute kernels (JAX/XLA/Pallas) for comet_tpu."""
+"""Device-side compute kernels (JAX/XLA) for comet_tpu."""

@@ -6,7 +6,7 @@ numpy — every set operation (AND/OR/ANDNOT) is one vectorized word-wise op,
 and BSI comparisons are the classic bit-sliced O(64 word-ops) algorithms
 over biased-unsigned bitplanes. Dense words beat roaring for the doc-ID
 ranges this engine produces (small, dense auto-increment IDs), keep the
-layout directly uploadable to the TPU as a predicate mask, and need no
+layout directly uploadable to the device as a predicate mask, and need no
 third-party dependency.
 """
 
@@ -197,7 +197,7 @@ class BSI:
     bit-sliced layout pays 64 plane updates per batch) and every comparison
     into one vectorized compare + packbits (vs 64 word-ops with carry
     logic). Values stay BIASED (v + 2^63) so unsigned compares handle
-    negatives, and the layout uploads directly to the TPU as two int32
+    negatives, and the layout uploads directly to the device as two int32
     half-planes when a device-resident filter is wanted.
 
     Comparison results are memoized per (op, value) until the next write —

@@ -1,9 +1,9 @@
-"""Distance kernels: batched query x corpus scoring on the MXU.
+"""Distance kernels: batched query x corpus scoring as matmuls.
 
 The reference computes one scalar distance at a time in Go loops
 (distance.go:109-290). Here every metric is a tiled [Q, d] x [d, N] matmul:
 
-- L2^2:   ||q||^2 + ||x||^2 - 2 q.x   (one MXU matmul + rank-1 updates)
+- L2^2:   ||q||^2 + ||x||^2 - 2 q.x   (one matmul + rank-1 updates)
 - L2:     sqrt(L2^2)
 - cosine: 1 - clip(q.x, -1, 1) on pre-normalized rows (distance.go:197-216's
   preprocessing contract: both sides are unit vectors at insert time).
@@ -22,10 +22,11 @@ import numpy as np
 
 from comet_tpu.types import DistanceKind, ZeroVectorError
 
-# Distance matmuls default to full-f32 MXU passes: the default (bf16-pass)
-# precision perturbs distances by ~0.3% relative, enough to flip neighbor
-# order and break exact recall parity with the scalar-f32 reference. ANN
-# index types may opt into faster, lower-precision passes explicitly.
+# Distance matmuls default to true float32 products: the default precision
+# may run them in bf16 or TF32 (a GPU's tensor cores), which perturbs
+# distances by ~0.3% relative — enough to flip neighbor order and break
+# exact recall parity with the scalar-f32 reference. ANN index types may
+# opt into faster, lower-precision passes explicitly.
 DEFAULT_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -68,8 +69,8 @@ def pairwise_scores_from_norms(
 
     Avoids re-reducing the corpus on every call when it is resident in HBM.
     When the corpus is stored reduced-precision (bfloat16 fast path), the
-    matmul runs native single-pass bf16 on the MXU; full-f32 inputs keep the
-    exactness-preserving multi-pass precision. An int8 corpus is symmetric
+    matmul runs single-pass in that precision; full-f32 inputs keep the
+    exactness-preserving full f32 precision. An int8 corpus is symmetric
     abs-max quantized storage (quantizer.go:180-247 wired into the scan):
     `scale` dequantizes the inner product, `corpus_sqnorms` must already be
     in the dequantized domain, and the HBM read is a quarter of f32 — the

@@ -3,13 +3,12 @@
 The reference's HNSW search is per-query pointer chasing with Go heaps
 (hnsw_index.go:565-629). Here layer-0 search is a LOCKSTEP BEAM: a whole
 batch of queries runs best-first search simultaneously inside one XLA
-while_loop — each iteration expands every query's best unexpanded
-candidate, gathers its padded neighbor row, scores all neighbors as one
-batched matvec, and merges via two-key sorts. Per-query visited sets are
-dense bool rows; filter/threshold masks gate RESULT admission only, so
-filtered nodes still route traversal (the reference post-filters AFTER
-traversal and can return < k results, hnsw_index_search.go:308-335 — fixed
-here by design).
+while_loop — each iteration expands every query's best `expand` unexpanded
+candidates, gathers their padded neighbor rows, scores all neighbors as one
+batched matvec, and merges via two-key sorts. Per-query visited sets are packed
+uint32 bitmasks; filter/threshold masks gate RESULT admission only, so filtered
+nodes still route traversal (the reference post-filters AFTER traversal and can
+return < k results, hnsw_index_search.go:308-335 — fixed here by design).
 """
 
 from __future__ import annotations
@@ -70,9 +69,9 @@ def beam_search_layer0(
     (inf, IDX_SENTINEL).
 
     `expand` > 1 expands that many best unexpanded candidates per iteration
-    (classic accelerator adaptation: the sequential while_loop is the wall-
-    clock bottleneck, so trade a slightly different exploration order for
-    ~expand x fewer iterations; recall impact is negligible at these ef).
+    (the sequential while_loop is the wall-clock bottleneck, so trade a
+    slightly different exploration order for ~expand x fewer iterations;
+    recall impact is negligible at these ef).
 
     `fused_results=True` merges every ALLOWED scored node into a separate
     result set each iteration — needed when filters/thresholds/deletes make
@@ -83,13 +82,12 @@ def beam_search_layer0(
     iteration instead of two.
 
     `seed_d`/`seed_s` initialize the beam from an IVF cluster-probe scan
-    (the pure-XLA twin of ops/beam_kernel's seeded start): rows must be
-    sorted (dist, slot) ascending with (INF, IDX_SENTINEL) padding and
-    duplicate-free per row; distances must live in the index's METRIC space
-    (the same domain `_neighbor_dists` produces) since they flow into the
-    returned results. Queries whose seed row is empty fall back to
-    `entry_slots`. `stop` narrows the termination window: a query stays
-    active while its best unexpanded candidate beats the stop-th beam
+    (indexes/hnsw._seed_scan): rows must be sorted (dist, slot) ascending with
+    (INF, IDX_SENTINEL) padding and duplicate-free per row; distances must live
+    in the index's METRIC space (the same domain `_neighbor_dists` produces)
+    since they flow into the returned results. Queries whose seed row is empty
+    fall back to `entry_slots`. `stop` narrows the termination window: a query
+    stays active while its best unexpanded candidate beats the stop-th beam
     entry (default ef — the classic bound); seeds fill the beam with true
     near-neighbors, so the classic bound would expand ALL of them while a
     k-sized window stops once expansion cannot change the returned top-k."""
@@ -253,69 +251,22 @@ def beam_search_layer0(
 
 
 @jax.jit
-def greedy_descend(queries, entry, upper, vectors, sqnorms):
-    """Device-side greedy descent through the upper layers.
+def nearest_entry(queries, mem_vecs_t, mem_sqn, mem_slots):
+    """Layer-0 entry selection: the nearest upper-layer member per query,
+    as one matmul over all level>=1 nodes (~n/M of the corpus).
 
-    queries [Q, d] preprocessed f32; entry [Q] i32; upper [nlev, cap, m]
-    int32 adjacency stacked TOP level first (-1 padded). Comparisons run in
-    squared-distance space (order-equivalent to L2/cosine on preprocessed
-    vectors). Returns per-query layer-0 entry slots [Q] i32.
-
-    Replaces the host numpy descent for large batches: at Q=2048 the host
-    per-hop [Q, m, d] einsums cost ~0.4 s/chunk — measured 60%+ of HNSW
-    search time in bench.py (the per-hop device gather is row-count-bound
-    and ~20x cheaper)."""
-    qn = jnp.sum(queries * queries, axis=1)
-    cur = entry.astype(jnp.int32)
-    ev = vectors[cur]
-    cur_d = qn + sqnorms[cur] - 2.0 * jnp.einsum(
-        "qd,qd->q", queries, ev, preferred_element_type=jnp.float32
-    )
-    q_iota = jnp.arange(queries.shape[0])
-
-    def per_level(carry, adj_l):
-        cur, cur_d = carry
-
-        def cond(st):
-            i, _, _, moved = st
-            return (i < 64) & moved
-
-        def body(st):
-            i, cur, cur_d, _ = st
-            neigh = adj_l[cur]                       # [Q, m]
-            ok = neigh >= 0
-            safe = jnp.maximum(neigh, 0)
-            nv = vectors[safe]                       # [Q, m, d]
-            ip = jnp.einsum(
-                "qd,qmd->qm", queries, nv,
-                preferred_element_type=jnp.float32,
-            )
-            ndist = qn[:, None] + sqnorms[safe] - 2.0 * ip
-            ndist = jnp.where(ok, ndist, jnp.inf)
-            best = jnp.argmin(ndist, axis=1)
-            bd = ndist[q_iota, best]
-            move = bd < cur_d
-            cur = jnp.where(move, neigh[q_iota, best], cur)
-            cur_d = jnp.where(move, bd, cur_d)
-            return (i + 1, cur, cur_d, jnp.any(move))
-
-        st = lax.while_loop(cond, body, (jnp.int32(0), cur, cur_d, True))
-        return (st[1], st[2]), 0
-
-    (cur, _), _ = lax.scan(per_level, (cur, cur_d), upper)
-    return cur
-
-
-@partial(jax.jit, donate_argnums=(0,))
-def scatter_rows(dst: jax.Array, rows: jax.Array, values: jax.Array) -> jax.Array:
-    """In-place row update of a device-resident array (donated buffer) —
-    the incremental graph-sync primitive used during batched construction.
-
-    Callers must bucket `rows` to a small set of lengths (pad with repeats
-    of a row writing its current value): every distinct length is a fresh
-    XLA compilation.
-    """
-    return dst.at[rows].set(values)
+    Takes the place of lockstep greedy descent through the upper layers,
+    whose per-hop gathers run as many sequential steps as the WORST query
+    needs. The matmul runs in bf16 on purpose: the entry only starts the
+    beam, so a near-tie flipped by rounding costs nothing but a slightly
+    different start. queries [Q, d] f32; mem_vecs_t [d, M] bf16; mem_sqn
+    [M] f32; mem_slots [M] i32. Returns [Q] i32 layer-0 slots."""
+    ip = jnp.dot(
+        queries.astype(jnp.float32).astype(jnp.bfloat16), mem_vecs_t,
+        preferred_element_type=jnp.float32,
+    )                                                   # [Q, M]
+    d = mem_sqn[None, :] - 2.0 * ip                     # + qn is rank-free
+    return mem_slots[jnp.argmin(d, axis=1)]
 
 
 @partial(jax.jit, donate_argnums=(0, 1, 2))

@@ -1,25 +1,24 @@
-"""Bulk HNSW graph construction — staged exact-kNN rounds on the MXU.
+"""Bulk HNSW graph construction — staged exact-kNN rounds on the device.
 
 The incremental insert path (indexes/hnsw.py:_insert_round) is the
-reference's per-node algorithm batched (hnsw_index.go:486-560), and
-profiling shows it is the wrong shape for a TPU: ~40% of build wall time
-is an ~850-iteration device beam per 512-vector round and ~40% is host
-numpy reverse-edge pruning — 200k builds run at ~350-730 vec/s.
+reference's per-node algorithm batched (hnsw_index.go:486-560): every
+512-vector round runs a device beam of several hundred sequential
+iterations, then prunes reverse edges in host numpy.
 
 A first bulk design (every row = its exact nearest neighbors) built
 non-navigable graphs: recall@100 collapsed to ~0.2 because pure-kNN
 adjacency has only short edges, so greedy descent/beam search cannot
 cross regions. HNSW's navigability comes from INSERTION ORDER: nodes
 inserted while the graph was small keep long-range edges. This builder
-reproduces exactly that, at MXU speed:
+reproduces exactly that with device matmuls:
 
   - a layer's nodes are processed in DOUBLING-SIZE STAGES (64, 64, 128,
     ...); stage nodes take their forward edges from an EXACT kNN against
     the prefix [0, stage_end) — the reference's insert loop with
     efConstruction = infinity, so early nodes keep the long-range edges
     that make the graph navigable;
-  - each stage's kNN is one masked flat-scan sweep with the same fused
-    Pallas kernel the flat index serves queries with (ops/pallas_scan).
+  - each stage's kNN is one masked flat-scan sweep with the exact block
+    top-k the flat index serves queries with (ops/topk.block_topk).
     ALL layers share one capacity-shaped device corpus; the "first hi
     members of this layer" predicate is a runtime member-rank mask, so
     every stage of every layer reuses the same compiled shapes;
@@ -38,9 +37,7 @@ reproduces exactly that, at MXU speed:
 The adjacency LIVES ON DEVICE for the whole build: stages chain
 pipeline -> fused dedup/heuristic/select -> scatter without host
 round-trips, and the reverse pass (edge sort, in-degree ranking, scatter,
-chunked per-row re-select under lax.map) is a single jitted call. This
-matters doubly here because the build host services fresh memory pages
-at ~8 MB/s — every avoided host temporary is wall time.
+chunked per-row re-select under lax.map) is a single jitted call.
 
 Distances are kernel-domain (squared L2 / cosine distance) and
 comparison-only. Tie order follows the library contract (distance asc,
@@ -60,8 +57,7 @@ _TIMING = bool(os.environ.get("COMET_BULK_TIMING"))
 from comet_tpu.ops.topk import IDX_SENTINEL
 from comet_tpu.types import DistanceKind
 
-# Below this many prefix rows a host matmul beats the device pipeline (and
-# the CPU/test backend has no Pallas kernels at all).
+# Below this many prefix rows a host matmul beats a device dispatch.
 HOST_KNN_MAX = 2048
 # Canonical host-stage batch rows: every distinct device shape costs a
 # multi-second cached-executable load per process, so ALL host stages of
@@ -73,7 +69,10 @@ HOST_BP = 2048
 # pure-kNN and descent recall collapsed); total device FLOPs are
 # independent of the stage count, and tiny stages are host matmuls.
 FIRST_STAGE = 64
-QUERY_CHUNK = 32768
+# Device kNN query rows per dispatch and corpus rows per scan step: the
+# f32 distance tile is QUERY_CHUNK x KNN_SUPER_TILE (4 GB).
+QUERY_CHUNK = 4096
+KNN_SUPER_TILE = 1 << 18
 FIN_CHUNK = 16384
 RANK_NONE = np.int32(2**31 - 1)
 SENT = int(IDX_SENTINEL)
@@ -93,39 +92,22 @@ class BulkGraphBuilder:
         self.n = n
         self.kind = kind
         self.cosine = kind == DistanceKind.COSINE
-        self.dev = None  # (vectors, sqnorms, corpus_t) on device
+        self.dev = None  # (vectors, sqnorms) on device
         self._fin_corpus = None
-        self._qc_buf = None
 
     # -- device management -------------------------------------------------
 
     def _ensure_device(self):
-        """Pipeline corpus (transposed) for the Pallas kNN sweeps."""
+        """Capacity-shaped device corpus + squared norms for the kNN
+        sweeps, uploaded once per build."""
         if self.dev is not None:
             return
-        import jax
         import jax.numpy as jnp
 
-        from comet_tpu.ops.pallas_scan import TN
-
-        vectors = self.vectors
-        cap = len(vectors)
-        if cap % TN:
-            pad = -(-cap // TN) * TN
-            grown = np.zeros((pad, vectors.shape[1]), np.float32)
-            grown[: self.n] = vectors[: self.n]
-            vectors = grown
         from comet_tpu.indexes.base import upload_f32_exact
 
-        dev_vecs = upload_f32_exact(vectors)
-        sqn = jnp.sum(dev_vecs * dev_vecs, axis=1)
-        corpus_t = jax.jit(jnp.transpose)(dev_vecs)
-        self.dev = (dev_vecs, sqn, corpus_t)
-        self._mask = jax.jit(
-            lambda rank, sqn, hi: jnp.where(
-                rank < hi, 0.0 if self.cosine else sqn, jnp.inf
-            ).astype(jnp.float32)
-        )
+        dev_vecs = upload_f32_exact(self.vectors)
+        self.dev = (dev_vecs, jnp.sum(dev_vecs * dev_vecs, axis=1))
 
     def _finalize_corpus(self):
         """Device corpus for finalize/append gathers: the shared capacity
@@ -179,8 +161,6 @@ class BulkGraphBuilder:
         -1 padded, GLOBAL slots — only member rows are populated."""
         import jax.numpy as jnp
 
-        from comet_tpu.ops.pallas_scan import pallas_available
-
         n = self.n
         order = (
             np.arange(n, dtype=np.int32)
@@ -191,7 +171,7 @@ class BulkGraphBuilder:
         if nloc <= 1:
             return np.full((n, width), -1, np.int32)
 
-        use_dev_knn = pallas_available() and nloc > HOST_KNN_MAX
+        use_dev_knn = nloc > HOST_KNN_MAX
         rank_dev = None
         t0 = time.perf_counter() if _TIMING else 0.0
         if use_dev_knn:
@@ -277,8 +257,7 @@ class BulkGraphBuilder:
                 flush=True,
             )
 
-        # sentinel -> -1 happened inside the append pass (on device: a host
-        # np.where here would allocate fresh pages at this box's ~8 MB/s)
+        # sentinel -> -1 happened inside the append pass (on device)
         t0 = time.perf_counter() if _TIMING else 0.0
         out = np.asarray(adj_s)
         if _TIMING:
@@ -291,53 +270,45 @@ class BulkGraphBuilder:
         self, corpus, fin, adj_s, adj_d, order, rank_dev, lo, hi, k,
         m_forward, width, out_w,
     ):
-        """One device stage: chunked pipeline -> fused finalize -> scatter,
-        fully asynchronous (no host sync until the layer's final download).
-        The query upload buffer is pooled: this host faults fresh pages at
-        ~8 MB/s, so per-stage np.zeros allocations were the hidden cost of
-        the first implementation."""
+        """One device stage: chunked exact kNN against the member prefix
+        -> fused finalize -> scatter, fully asynchronous (no host sync
+        until the layer's final download)."""
         import jax.numpy as jnp
 
-        from comet_tpu.ops.pallas_scan import TQ, flat_topk_pipeline
+        from comet_tpu.ops.topk import block_topk
 
         n = self.n
         d = self.vectors.shape[1]
-        _, sqn, corpus_t = self.dev
-        mask_vec = self._mask(rank_dev, sqn, hi)
-        inf = jnp.asarray(np.float32(np.inf))
-        # ONE canonical chunk shape for every stage of every layer: each
-        # distinct query shape costs a multi-second cached-executable
-        # load per process, which dominated small stages. Pad rows carry
-        # garbage queries (no zero-fill) — their results scatter to row n
-        # and are dropped.
-        canon = min(QUERY_CHUNK, max(_pow2(self.n), TQ))
-        if self._qc_buf is None:
-            self._qc_buf = np.zeros((canon, d), np.float32)
-            self._own_buf = np.full(canon, -2, np.int32)
-            self._row_buf = np.full(canon, 0, np.int32)
-        contiguous = order.base is not None or (
-            len(order) and order[0] == 0 and order[-1] == len(order) - 1
-        )
+        vecs, sqn = self.dev
+        prefix = rank_dev < hi                 # the first hi layer members
+        inf = np.float32(np.inf)
+        kind = DistanceKind.COSINE if self.cosine else DistanceKind.L2_SQUARED
+        # ONE canonical chunk shape for every stage of every layer, so the
+        # whole build compiles one kNN executable. Pad rows are zero
+        # queries owned by no slot; their results scatter to row n and are
+        # dropped. Each chunk gets FRESH host buffers: dispatch is
+        # asynchronous and a backend may read (or alias) a host buffer after
+        # this loop has moved on, so a pooled buffer refilled by the next
+        # chunk would hand a pending stage another chunk's rows.
+        canon = min(QUERY_CHUNK, _pow2(self.n))
+        super_tile = min(KNN_SUPER_TILE, vecs.shape[0])
         for q0 in range(lo, hi, canon):
             qn = min(canon, hi - q0)
             rows = order[q0 : q0 + qn]
-            if contiguous:
-                np.copyto(self._qc_buf[:qn], self.vectors[q0 : q0 + qn])
-            else:
-                self._qc_buf[:qn] = self.vectors[rows]
-            self._own_buf[:qn] = rows
-            self._own_buf[qn:] = -2
-            self._row_buf[:qn] = rows
-            self._row_buf[qn:] = n  # pad -> dropped by scatter
-            dh, sh = flat_topk_pipeline(
-                jnp.asarray(self._qc_buf), corpus_t, mask_vec, inf, k,
-                cosine=self.cosine, sqrt_out=False,
+            qc = np.zeros((canon, d), np.float32)
+            qc[:qn] = self.vectors[rows]
+            own = np.full(canon, -2, np.int32)
+            own[:qn] = rows
+            dst = np.full(canon, n, np.int32)  # pad -> dropped by scatter
+            dst[:qn] = rows
+            dh, sh = block_topk(
+                jnp.asarray(qc), vecs, sqn, prefix, inf, k, kind,
+                super_tile=super_tile,
             )
             fs, fd = fin(
-                corpus, sh, dh, jnp.asarray(self._own_buf),
-                min(m_forward, width), out_w,
+                corpus, sh, dh, jnp.asarray(own), min(m_forward, width), out_w,
             )
-            rows_dev = jnp.asarray(self._row_buf)
+            rows_dev = jnp.asarray(dst)
             adj_s = _scatter_rows(adj_s, rows_dev, fs, width)
             adj_d = _scatter_rows(adj_d, rows_dev, fd, width)
         return adj_s, adj_d
@@ -405,7 +376,9 @@ def _finalize_math(corpus, cand_s, cand_d, own, select, out_width, cosine):
     # canonical (dist asc, slot asc) candidate order
     d2, s2 = lax.sort((d1, s1), dimension=1, num_keys=2)
 
-    # pairwise candidate distances in bf16 (comparison-only)
+    # pairwise candidate distances in bf16: the heuristic only compares
+    # them, and an admission flipped by rounding changes which of two
+    # near-equidistant neighbours is kept, not the graph's correctness
     cv = corpus[jnp.clip(s2, 0, len(corpus) - 1)].astype(jnp.bfloat16)
     ip = jnp.einsum("bpd,bqd->bpq", cv, cv, preferred_element_type=jnp.float32)
     if cosine:

@@ -5,8 +5,8 @@ full-precision pass-through, half-precision, and symmetric abs-max int8
 (Map [-absMax, absMax] -> [-127, 127], quantizer.go:201-232). The reference
 ships this module UNWIRED (no index uses it, SURVEY.md §2 #3); here it is
 both standalone (this API) and the engine behind the flat index's optional
-reduced-precision storage mode. bfloat16 is added because it is the TPU's
-native reduced-precision format (same exponent range as float32).
+reduced-precision storage mode. bfloat16 is added because it keeps
+float32's exponent range at half the bytes.
 
 Batched: all ops are vectorized numpy over [n, d] arrays; scalar [d]
 vectors work too.
@@ -72,7 +72,7 @@ class HalfPrecisionQuantizer:
 
 
 class BFloat16Quantizer:
-    """bfloat16 storage — the TPU-native half format (extension)."""
+    """bfloat16 storage: float32 exponent range, half the bytes (extension)."""
 
     def train(self, vectors) -> None:
         return None

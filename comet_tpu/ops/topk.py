@@ -36,7 +36,7 @@ def merge_topk(
     """Merge two [Q, ka]/[Q, kb] top-k sets into the best [Q, k].
 
     Lower score is better; ties break toward the lower index. Used by the
-    streaming scan, cross-segment merging, and cross-shard (ICI) merging.
+    streaming scan, cross-segment merging, and cross-shard merging.
     """
     s = jnp.concatenate([scores_a, scores_b], axis=1)
     i = jnp.concatenate([idx_a, idx_b], axis=1)

@@ -1,22 +1,21 @@
-"""Corpus sharding across a TPU device mesh.
+"""Corpus sharding across a device mesh.
 
 The reference is a single Go process; its only "parallelism" is mutexes and
-goroutines (SURVEY.md §2 checklist). The TPU-native scaling axis is SPMD over
-an ICI mesh (jax.sharding + shard_map):
+goroutines (SURVEY.md §2 checklist). Here the scaling axis is SPMD over a
+1-D mesh of all devices (jax.sharding + shard_map); on a host of GPUs the
+collectives run as NCCL over NVLink:
 
 - Search: the corpus [N, d] is row-sharded over a 1-D mesh. Each device runs
   the same streaming masked top-k on its local shard, offsets local slot
-  indices to global slots, then an `all_gather` of the per-shard [Q, k]
-  (score, slot) pairs rides the ICI and a two-key sort merges them — exactly
-  the per-shard-top-k + gather/merge plan from SURVEY.md §5.8.
+  indices to global slots, then an `all_gather` of the per-shard [Q, k] (score,
+  slot) pairs crosses the mesh and a two-key sort merges them — exactly the
+  per-shard-top-k + gather/merge plan from SURVEY.md §5.8.
 - K-means training: per-shard partial centroid sums/counts are combined with
   `psum` over the mesh, so IVF/PQ training scales to corpora that don't fit
-  one chip's HBM.
+  one device's memory.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +41,15 @@ def make_corpus_mesh(devices=None) -> Mesh:
     return Mesh(np.array(devices), (AXIS,))
 
 
+def padded_shard(n: int, n_dev: int, tile: int) -> tuple[int, int]:
+    """(rows per device, scan tile) for n rows over n_dev devices: the
+    shard is padded up to a multiple of the tile, so every device's tiled
+    scan splits evenly (padding rows are invalid)."""
+    shard = max(-(-n // n_dev), 1)
+    tile = min(tile, shard)
+    return -(-shard // tile) * tile, tile
+
+
 def shard_rows(mesh: Mesh, *arrays):
     """Place arrays with their leading axis sharded over the mesh."""
     out = []
@@ -64,7 +72,7 @@ def make_sharded_search(mesh: Mesh, k: int, kind: DistanceKind, tile: int):
         s, i = scan_topk(queries, corpus, sqnorms, valid, threshold, k, kind, tile)
         base = lax.axis_index(AXIS).astype(jnp.int32) * n_local
         gi = jnp.where(i == IDX_SENTINEL, IDX_SENTINEL, i + base)
-        # All-gather the tiny [Q, k] candidate sets over ICI and merge.
+        # All-gather the tiny [Q, k] candidate sets over the mesh and merge.
         all_s = lax.all_gather(s, AXIS, axis=1, tiled=True)   # [Q, n_dev*k]
         all_i = lax.all_gather(gi, AXIS, axis=1, tiled=True)
         ss, ii = lax.sort((all_s, all_i), dimension=1, num_keys=2)
@@ -132,7 +140,7 @@ def make_sharded_ivf_search(
     `indexes/ivf._ivf_search_kernel`), builds a per-query probe-membership
     table, scans its local rows with probe membership fused into the
     distance mask (psum-free), and the per-shard [Q, k] candidates merge
-    with one `all_gather` over ICI — identical result contract to the
+    with one `all_gather` over the mesh — identical result contract to the
     single-device IVFIndex.
 
     fn(queries [Q, d] replicated (preprocessed), corpus [N, d] row-sharded,
@@ -202,8 +210,9 @@ class ShardedFlatSearcher:
     """Convenience wrapper: shard a corpus once, search many times.
 
     This is the multi-chip serving path for the flat index: corpus rows live
-    sharded across the mesh's HBM; every search broadcasts the (small) query
-    batch, runs per-shard scans in parallel, and merges k-candidates over ICI.
+    sharded across the devices' memory; every search broadcasts the (small)
+    query batch, runs per-shard scans in parallel, and merges k-candidates
+    over the mesh.
     """
 
     def __init__(
@@ -215,9 +224,7 @@ class ShardedFlatSearcher:
     ):
         n_dev = mesh.devices.size
         n = corpus.shape[0]
-        shard = -(-n // n_dev)
-        # pad so rows divide evenly over devices and tiles
-        shard = max(((shard + tile - 1) // tile) * tile, tile) if shard > tile else shard
+        shard, tile = padded_shard(n, n_dev, tile)
         n_pad = shard * n_dev
         pad = np.zeros((n_pad, corpus.shape[1]), dtype=np.float32)
         pad[:n] = corpus
@@ -225,7 +232,7 @@ class ShardedFlatSearcher:
         valid[:n] = True
         self.mesh = mesh
         self.kind = DistanceKind(kind)
-        self.tile = min(tile, shard)
+        self.tile = tile
         self.n = n
         self.n_pad = n_pad
         self._valid_host = valid
@@ -272,10 +279,8 @@ class ShardedIVFSearcher:
         assert isinstance(ivf_index, IVFIndex) and ivf_index.trained
         store = ivf_index._store
         n = store.n
-        n_dev = mesh.devices.size
-        shard = -(-n // n_dev)
-        shard = max(shard, 1)
-        n_pad = shard * n_dev
+        shard, tile = padded_shard(n, mesh.devices.size, tile)
+        n_pad = shard * mesh.devices.size
         dim = store.vectors.shape[1]
         pad = np.zeros((n_pad, dim), dtype=np.float32)
         pad[:n] = store.vectors[:n]
@@ -287,7 +292,7 @@ class ShardedIVFSearcher:
         self.kind = ivf_index.distance_kind()
         self.n = n
         self.n_pad = n_pad
-        self.tile = min(tile, shard)
+        self.tile = tile
         self.row_ids = store.ids[:n].copy()
         self.centroids = jnp.asarray(ivf_index._centroids)
         self._valid_host = valid
@@ -329,9 +334,10 @@ class ShardedIVFSearcher:
 class ShardedPQSearcher:
     """Multi-chip PQ serving: decoded reconstructions sharded over the mesh.
 
-    ADC distance is exactly L2 to the PQ reconstruction (see
-    `IVFPQIndex._device_dense`'s proof; pq_index_search.go:243-306 is the
-    scalar-LUT equivalent), so sharded PQ search IS a sharded flat L2 scan
+    ADC distance is exactly L2 to the PQ reconstruction (the sum over
+    subspaces of |q_m - codebook[m, code_m]|^2 IS |q - decode(code)|^2;
+    pq_index_search.go:243-306 is the scalar-LUT equivalent), so sharded
+    PQ search IS a sharded flat L2 scan
     over the decoded corpus — codes stay the authoritative storage; the
     reconstruction is a per-shard search-time cache. Queries are
     preprocessed for the SOURCE index's metric (cosine normalizes), then
@@ -375,7 +381,7 @@ class ShardedIVFPQSearcher:
     ranks centroids with the source index's metric while the fine scan runs
     sqrt-L2 over reconstructions — the sharded twin of the single-device
     dense path (`IVFPQIndex._search_launch` use_dense), merged with one
-    `all_gather` over ICI.
+    `all_gather` over the mesh.
     """
 
     def __init__(self, mesh: Mesh, ivfpq_index, tile: int = 1 << 14):
@@ -397,11 +403,10 @@ class ShardedIVFPQSearcher:
         if ivfpq_index._rot is not None:
             # OPQ: model lives in rotated coordinates; rotate the
             # reconstructions and coarse centroids BACK once so the
-            # sharded scan serves user-space queries (same move as
-            # IVFPQIndex._device_dense)
+            # sharded scan serves user-space queries
             rec = rec @ ivfpq_index._rot.T
             centroids_np = centroids_np @ ivfpq_index._rot.T
-        shard = max(-(-n // n_dev), 1)
+        shard, tile = padded_shard(n, n_dev, tile)
         n_pad = shard * n_dev
         dim = rec.shape[1]
         pad = np.zeros((n_pad, dim), dtype=np.float32)
@@ -417,7 +422,7 @@ class ShardedIVFPQSearcher:
         self._query_kind = ivfpq_index.distance_kind()
         self.n = n
         self.n_pad = n_pad
-        self.tile = min(tile, shard)
+        self.tile = tile
         self.row_ids = store.ids[:n].copy()
         self.centroids = jnp.asarray(centroids_np)
         self._valid_host = valid
@@ -571,7 +576,7 @@ def make_sharded_seeded_hnsw_search(
     per-query seed blocks shard over the mesh, and each device runs the
     pure-XLA lockstep beam initialized from its queries' seeds with the
     k-window stop bound (the single-device seeded beam's termination,
-    indexes/hnsw._pallas_launch). No collective: results stay sharded with
+    indexes/hnsw._search_launch). No collective: results stay sharded with
     their queries."""
     from comet_tpu.ops.graph import beam_search_layer0
 
@@ -601,9 +606,9 @@ class ShardedSeededHNSWSearcher:
     Stage 1 (corpus-sharded) — the seed probe scan IS the sharded IVF
     search: the corpus rows + their ~sqrt(n)-cell k-means assignments shard
     over the mesh, each device scans its shard masked to the probed cells,
-    and one [Q, stop] `all_gather` merges seed candidates over ICI
-    (`make_sharded_ivf_search`, exactly the single-device seeded beam's
-    cluster-probe start, indexes/hnsw._seed_scan).
+    and one [Q, stop] `all_gather` merges seed candidates over the mesh
+    (`make_sharded_ivf_search`: the single-device seeded beam's
+    cluster-probe start, indexes/hnsw._seed_scan, as a masked scan).
 
     Stage 2 (query-sharded) — the replicated-graph lockstep beam starts
     from each query's seed row with the k-window stop bound; queries and
@@ -611,7 +616,7 @@ class ShardedSeededHNSWSearcher:
     stages (the [Q, stop] seed block is tiny — that reshard is the only
     cross-stage traffic).
 
-    This is the TPU-native layout for both halves: the probe scan's big
+    This layout suits both halves: the probe scan's big
     axis is the corpus (shard it), the graph walk's big axis is the query
     stream (shard that; graph tables are MBs and replicate). Seed distances
     ride the index's metric domain (ops/distance), so they merge cleanly
@@ -673,7 +678,7 @@ class ShardedSeededHNSWSearcher:
         # corpus-sharded stage-1 state (rows pad to the mesh, like
         # ShardedIVFSearcher)
         n_dev = mesh.devices.size
-        shard = max(-(-n // n_dev), 1)
+        shard, tile = padded_shard(n, n_dev, tile)
         n_pad = shard * n_dev
         dim = store.vectors.shape[1]
         pad = np.zeros((n_pad, dim), np.float32)
@@ -683,7 +688,7 @@ class ShardedSeededHNSWSearcher:
         valid = np.zeros(n_pad, bool)
         valid[:n] = store.valid[:n]
         self.n = n
-        self._tile = min(tile, shard)
+        self._tile = tile
         self._centroids = jnp.asarray(cents)
         self._scan_corpus, self._scan_assign, self._scan_valid = shard_rows(
             mesh, pad, assign, valid
@@ -806,8 +811,8 @@ class ShardedHNSWSearcher:
 
     Mirrors HNSWIndex._search_batch parameters exactly (same beam kernel,
     same ef/k padding and iteration budget), so sharded results match the
-    single-device index bit-for-bit. Upper-layer greedy descent runs on the
-    host (it is ~N/M nodes of numpy work); the layer-0 beam — all the
+    single-device index's unseeded beam bit-for-bit. Entry selection is the
+    single-device nearest-upper-member matmul; the layer-0 beam — all the
     FLOPs — runs SPMD over the mesh.
     """
 
@@ -865,7 +870,7 @@ class ShardedHNSWSearcher:
             grown = np.zeros((q_pad, qpad.shape[1]), np.float32)
             grown[: len(qpad)] = qpad
             qpad = grown
-        entries = idx._descend(qpad)
+        entries = idx._descend_for_search(qpad)
 
         amask = jnp.asarray(idx._store.valid)
         if allowed is not None:

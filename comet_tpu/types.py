@@ -16,7 +16,7 @@ class DistanceKind(str, enum.Enum):
     - L2_SQUARED: squared Euclidean; preserves ordering, skips the sqrt.
     - COSINE: 1 - dot(a, b) on unit-normalized vectors; vectors are normalized
       at insert ("preprocess"), so search-time distance is a pure dot product
-      that maps straight onto the MXU.
+      that maps straight onto a matmul.
     """
 
     L2 = "l2"

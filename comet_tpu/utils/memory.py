@@ -5,13 +5,13 @@ The reference publishes memory for each index type (flat 488 MB, HNSW
 3984-3991) but offers no API to measure it. Here `memory_report(index)`
 reflectively walks an index's instance state and tallies every numpy array
 as HOST bytes and every jax.Array as DEVICE (HBM) bytes, grouped by the
-top-level attribute that owns it — so the HNSW neighborhood-packed routing
-table, the IVF chunk tables, PQ codes, BM25 postings, and metadata planes
+top-level attribute that owns it — so the HNSW adjacency and seed lists,
+the IVF chunk tables, PQ codes, BM25 postings, and metadata planes
 all land on the record without each index hand-enumerating its buffers
 (new buffers are counted the day they are added).
 
-Attached to every index as `stats()["memory"]`; BENCHMARKS.md's memory
-column reads these numbers. The tally covers ARRAY bytes (numpy + jax)
+Attached to every index as `stats()["memory"]`; bench.py's memory rows
+read these numbers. The tally covers ARRAY bytes (numpy + jax)
 — Python-object overhead (dict/list/str structures, e.g. BM25's
 incremental tf maps before their compiled-array cache builds) is not
 estimated.

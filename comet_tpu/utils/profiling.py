@@ -21,7 +21,7 @@ log = logging.getLogger("comet_tpu.profiling")
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """JAX profiler trace around a block: per-kernel TPU timings."""
+    """JAX profiler trace around a block: per-kernel device timings."""
     import jax
 
     jax.profiler.start_trace(log_dir)

@@ -1,11 +1,11 @@
 """Tour of the five vector index types and their accuracy/speed levers.
 
 A reference (wizenheimer/comet) user switching over finds every index and
-knob here, plus the TPU-native extras: `search_batch`/`search_stream`
+knob here, plus the batch-first extras: `search_batch`/`search_stream`
 throughput APIs, device-fused `with_nrefine`, the OPQ rotation, seeded
 HNSW, and exact per-structure memory accounting.
 
-Run: python examples/ann_tour.py        (works on CPU or TPU)
+Run: python examples/ann_tour.py        (works on CPU or GPU)
 """
 
 import os
@@ -84,7 +84,7 @@ f = show("ivfpq (OPQ + nrefine=64)", ivfpq, time.perf_counter() - t0,
          nprobes=16, nrefine=64)
 print(f"{'':28s} recall@10 vs flat oracle: {recall(f):.3f}")
 
-# 5. HNSW: graph ANN; on TPU the beam is seeded by an IVF probe scan.
+# 5. HNSW: graph ANN; at >= 32k vectors the beam starts from an IVF probe scan.
 t0 = time.perf_counter()
 hnsw = HNSWIndex(DIM, DistanceKind.L2, HNSWConfig(m=16, ef_construction=128))
 hnsw.add_batch(corpus, ids=ids)

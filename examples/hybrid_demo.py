@@ -1,6 +1,6 @@
 """End-to-end demo: hybrid product search with durable storage.
 
-Run: python examples/hybrid_demo.py        (works on CPU or TPU)
+Run: python examples/hybrid_demo.py        (works on CPU or GPU)
 """
 
 import os

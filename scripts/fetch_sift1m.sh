@@ -2,10 +2,8 @@
 # Fetch the real SIFT1M corpus (the dataset behind every reference baseline
 # row, /root/reference/docs/INDEX.md:694-5342) and point the benchmark at it.
 #
-# The build sandbox has ZERO network egress (verified round 5:
-# `socket.create_connection(("ftp.irisa.fr", 21))` -> name resolution fails),
-# so this script documents the exact procedure for any environment that does
-# have network. BENCHMARKS.md states which corpus each committed row used.
+# It needs network access, so it documents the exact procedure for any
+# environment that has it.
 #
 # Usage:
 #   ./scripts/fetch_sift1m.sh /path/to/datasets

@@ -15,10 +15,11 @@ def preprocess_np(v, kind):
     return v
 
 
-def distances_np(queries, corpus, kind):
-    """[Q, N] distances; inputs already preprocessed."""
-    q = np.asarray(queries, dtype=np.float32)
-    x = np.asarray(corpus, dtype=np.float32)
+def distances_np(queries, corpus, kind, dtype=np.float32):
+    """[Q, N] distances; inputs already preprocessed. `dtype` sets the
+    arithmetic (float64 gives a reference for float32 device results)."""
+    q = np.asarray(queries, dtype=dtype)
+    x = np.asarray(corpus, dtype=dtype)
     ip = q @ x.T
     if kind == "cosine":
         return 1.0 - np.clip(ip, -1.0, 1.0)

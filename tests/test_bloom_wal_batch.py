@@ -15,7 +15,7 @@ from comet_tpu.storage import open_persistent_hybrid_index
 from comet_tpu.storage.bloom import BloomFilter
 from comet_tpu.storage.wal import WalWriter, replay
 
-from tests.test_storage import add_docs, make_config
+from test_storage import add_docs, make_config  # tests/ is on sys.path
 
 
 # -- BloomFilter unit behavior -------------------------------------------------

@@ -24,7 +24,7 @@ from comet_tpu.io.serial import SerializationError
 from comet_tpu.storage import open_persistent_hybrid_index
 from comet_tpu.types import DistanceKind
 
-from tests.test_storage import add_docs, make_config
+from test_storage import add_docs, make_config  # tests/ is on sys.path
 
 
 def _flushed_store(tmp_path, n=10):

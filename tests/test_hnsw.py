@@ -211,53 +211,56 @@ def test_duplicate_id_rejected(rng):
 
 
 def test_seed_state_incremental_maintenance(rng, monkeypatch):
-    """Seed tables must survive small mutations without a full O(n*nlist)
-    reassignment + table rebuild (ADVICE r3): adds extend the cached
-    per-slot assignment; removals refresh only the device mask; the layout
-    rebuilds only past the debounce threshold or after a flush."""
+    """Seed lists must survive small mutations without a full O(n*nlist)
+    reassignment + list rebuild (ADVICE r3): adds extend the cached
+    per-slot assignment; removals rebuild nothing (the seed scan masks by
+    current validity); the lists rebuild only past the debounce threshold
+    or after a flush."""
+    import jax.numpy as jnp
+
     import comet_tpu.indexes.hnsw as hnsw_mod
 
     monkeypatch.setattr(hnsw_mod, "SEED_REBUILD_MIN", 64)
     idx, data = build_hnsw(rng, n=600, dim=8)
     st1 = idx._ensure_seed()
-    t1 = st1["corpus_t"]
+    t1 = st1["chunk_slots"]
     assert idx._seed_layout_n == 600
     assert idx._seed_assign_n == 600
 
-    # small add: assignments extend, layout NOT rebuilt
+    # small add: assignments extend, lists NOT rebuilt
     extra = rng.normal(size=(5, 8)).astype(np.float32)
     idx.add_batch(extra, ids=list(range(1001, 1006)))
     st2 = idx._ensure_seed()
-    assert st2["corpus_t"] is t1
+    assert st2["chunk_slots"] is t1
     assert idx._seed_layout_n == 600
     assert idx._seed_assign_n == 605
     assert idx._seed_version == idx._store.version
 
-    # removal: mask refresh only — the removed slot's rows go +inf
+    # removal: the slot stays listed, but the seed scan never returns it
     slot = idx._store.id_to_slot[3]
     idx.remove(3)
     st3 = idx._ensure_seed()
-    assert st3["corpus_t"] is t1
-    rows = np.flatnonzero(np.asarray(st3["row_slot"]) == slot)
-    assert len(rows) == 1
-    assert np.isinf(np.asarray(st3["mask_vec"])[rows]).all()
+    assert st3["chunk_slots"] is t1
+    assert (np.asarray(st3["chunk_slots"]) == slot).sum() == 1
+    _, seeds = idx._seed_scan(jnp.asarray(idx._store.vectors[slot][None]), 16)
+    assert slot not in np.asarray(seeds)
 
     # big add past the debounce: full rebuild picks the new slots up
     big = rng.normal(size=(80, 8)).astype(np.float32)
     idx.add_batch(big, ids=list(range(2001, 2081)))
     st4 = idx._ensure_seed()
-    assert st4["corpus_t"] is not t1
+    assert st4["chunk_slots"] is not t1
     assert idx._seed_layout_n == idx._store.n
-    # removed slot is gone from the rebuilt layout entirely
-    assert not np.any(np.asarray(st4["row_slot"]) == slot)
+    # removed slot is gone from the rebuilt lists entirely
+    assert not np.any(np.asarray(st4["chunk_slots"]) == slot)
 
     # flush permutes slots: caches must die and rebuild cleanly
     idx.remove(5)
     idx.flush()
     st5 = idx._ensure_seed()
     assert idx._seed_layout_n == idx._store.n
-    perm = np.asarray(st5["row_slot"])
-    live = perm[perm >= 0]
+    lists = np.asarray(st5["chunk_slots"])
+    live = lists[lists >= 0]
     assert len(live) == idx._store.n == idx.count()
-    # every layout row maps to a valid slot
+    # every listed row maps to a valid slot
     assert idx._store.valid[live].all()

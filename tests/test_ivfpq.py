@@ -186,31 +186,39 @@ def test_serialization_param_mismatch(rng):
 
 
 def test_refine_device_matches_host_refine(rng):
-    """The fused device re-rank (_refine_device, the TPU dense path's
-    nrefine) must order candidates identically to the host numpy _refine
-    for every metric, including sentinel padding and (score, slot) ties."""
+    """The device re-rank (_refine_device, the nrefine stage) must order
+    candidates exactly like a host numpy re-rank for every metric,
+    including sentinel padding and (score, slot) ties."""
     import jax.numpy as jnp
 
     from comet_tpu.indexes.ivfpq import _refine_device
+    from comet_tpu.ops.distance import preprocess
     from comet_tpu.ops.topk import IDX_SENTINEL
 
+    sent = int(IDX_SENTINEL)
     for kind in (DistanceKind.L2, DistanceKind.L2_SQUARED, DistanceKind.COSINE):
-        idx, data = trained_ivfpq(rng, n=300, store_originals=True)
-        idx._distance_kind = kind
-        from comet_tpu.ops.distance import preprocess
-
-        vecs = preprocess(data, kind)
-        idx._store.vectors[: len(vecs)] = vecs  # store in metric domain
-        idx._store.version += 1
+        vecs = preprocess(rng.normal(size=(300, 16)).astype(np.float32), kind)
         q = preprocess(rng.normal(size=(6, 16)).astype(np.float32), kind)
         slots = rng.integers(0, 300, size=(6, 32)).astype(np.int32)
-        slots[:, -3:] = int(IDX_SENTINEL)  # padding tail
+        slots[:, -3:] = sent  # padding tail
         slots[0, 1] = slots[0, 0]  # duplicate slot -> exact tie, slot break
 
-        host_s, host_i = idx._refine(q, np.zeros_like(slots, np.float32), slots, 10)
-        vd, sd, _ = idx._store.device_state()
-        dev_s, dev_i = _refine_device(jnp.asarray(q), jnp.asarray(slots),
-                                      vd, sd, 10, kind)
+        cand = vecs[np.where(slots != sent, slots, 0)]      # [Q, C, d]
+        if kind == DistanceKind.COSINE:
+            exact = 1.0 - np.clip(np.einsum("qd,qcd->qc", q, cand), -1.0, 1.0)
+        else:
+            diff = cand - q[:, None, :]
+            exact = np.einsum("qcd,qcd->qc", diff, diff)
+            if kind == DistanceKind.L2:
+                exact = np.sqrt(exact)
+        exact = np.where(slots != sent, exact, np.inf).astype(np.float32)
+        order = np.lexsort((slots, exact), axis=1)[:, :10]
+        host_s = np.take_along_axis(exact, order, axis=1)
+        host_i = np.take_along_axis(slots, order, axis=1)
+
+        dev_s, dev_i = _refine_device(
+            jnp.asarray(q), jnp.asarray(slots), jnp.asarray(vecs), 10, kind
+        )
         np.testing.assert_array_equal(np.asarray(dev_i), host_i)
         np.testing.assert_allclose(np.asarray(dev_s), host_s, atol=1e-4)
 
@@ -278,31 +286,3 @@ def test_opq_improves_quantization_error(rng):
         return float(((rec - data) ** 2).sum())
 
     assert recon_err(True) < recon_err(False) * 0.9
-
-
-def test_device_dense_opq_centroids_in_user_space(rng):
-    """The dense-path coarse centroids must rotate back with the
-    reconstructions (OPQ model space -> user space, the same move the
-    sharded searcher makes): probing user-space queries against
-    model-space centroids ranks clusters in mismatched coordinates on
-    anisotropic data."""
-    n, dim = 900, 16
-    base = rng.normal(size=(n, dim)).astype(np.float32)
-    scalemat = np.diag(np.linspace(0.1, 2.0, dim).astype(np.float32))
-    data = (base @ scalemat).astype(np.float32)
-    idx = IVFPQIndex(dim, DistanceKind.L2, nlist=4, m=4, nbits=6,
-                     store_originals=True, opq=True, opq_iters=2)
-    idx.train(data)
-    idx.add_batch(data)
-    idx._device_dense()
-    got = np.asarray(idx._dev_cents_user)
-    want = idx._centroids @ idx._rot.T
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-    # without OPQ the cache passes the centroids through unchanged
-    idx2 = IVFPQIndex(dim, DistanceKind.L2, nlist=4, m=4, nbits=6,
-                      store_originals=True)
-    idx2.train(data)
-    idx2.add_batch(data)
-    idx2._device_dense()
-    np.testing.assert_allclose(
-        np.asarray(idx2._dev_cents_user), idx2._centroids, rtol=1e-6)

@@ -1,8 +1,8 @@
 """Seeded pure-XLA beam (ops/graph.beam_search_layer0 seed_d/seed_s/stop)
 and the two-stage sharded seeded-HNSW searcher (parallel/sharded).
 
-The seeded beam is the pure-XLA twin of the Pallas seeded start
-(indexes/hnsw._pallas_launch): the beam initializes from an IVF cluster-
+The seeded beam is the HNSW index's default search at n >= 32k
+(indexes/hnsw._search_launch): the beam initializes from an IVF cluster-
 probe scan and terminates on the k-window bound. Contracts tested here:
 seeds flow into results verbatim (metric domain), empty seed rows fall back
 to the entry point, the stop window cannot lose admitted seeds, and the

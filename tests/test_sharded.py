@@ -2,6 +2,7 @@
 
 import jax
 import numpy as np
+import pytest
 
 from comet_tpu.parallel.sharded import (
     ShardedFlatSearcher,
@@ -376,3 +377,28 @@ def test_sharded_ivfpq_opq_matches_single_device(rng):
     got_ids = sh.row_ids[np.clip(slots, 0, n - 1)]
     np.testing.assert_array_equal(got_ids, single_ids)
     np.testing.assert_allclose(s, single_sc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1000, 8 * 125 + 3])
+def test_sharded_ivf_shard_not_a_tile_multiple(rng, n):
+    """Rows per device that the scan tile does not divide (1M rows per card
+    with a 16k tile on four cards) pad up to a tile multiple instead of
+    failing the tile reshape."""
+    from comet_tpu.indexes.ivf import IVFIndex
+    from comet_tpu.parallel.sharded import padded_shard
+
+    mesh = make_corpus_mesh()
+    d = 8
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    queries = rng.normal(size=(5, d)).astype(np.float32)
+    idx = IVFIndex(d, 8, DistanceKind.L2)
+    idx.train(corpus)
+    idx.add_batch(corpus, ids=np.arange(1, n + 1, dtype=np.uint32))
+    shard, tile = padded_shard(n, 8, 48)
+    assert shard % tile == 0 and shard * 8 >= n
+    sharded = ShardedIVFSearcher(mesh, idx, tile=48)
+    want_ids, _ = idx.search_batch(queries, k=10, nprobes=3)
+    _, slots = sharded.search(queries, 10, nprobe=3)
+    np.testing.assert_array_equal(
+        sharded.row_ids[np.clip(slots, 0, n - 1)], want_ids
+    )

@@ -114,3 +114,64 @@ def test_ascii_path_matches_general_path():
     for _ in range(300):
         s = "".join(rng.choices(string.printable, k=rng.randint(0, 80)))
         assert segment(s) == _PATTERN.findall(s), repr(s)
+
+
+def test_tables_match_regex_properties():
+    """The committed code-point tables equal the `regex` package's
+    Word_Break / Extended_Pictographic properties (checked where `regex`
+    is installed; the library itself never imports it)."""
+    import importlib.util
+    import os
+
+    pytest.importorskip("regex")
+    from comet_tpu.indexes import uax29_tables
+
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "scripts", "gen_uax29_tables.py",
+    )
+    spec = importlib.util.spec_from_file_location("gen_uax29_tables", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    wb, ext_pict = gen.all_tables()
+    assert wb == uax29_tables.WORD_BREAK
+    assert ext_pict == uax29_tables.EXTENDED_PICTOGRAPHIC
+
+
+def test_import_without_regex_package():
+    """`import comet_tpu` and BM25 segmentation work where `regex` is not
+    installed."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys; sys.modules['regex'] = None\n"
+        "import comet_tpu\n"
+        "from comet_tpu.indexes.uax29 import segment\n"
+        "print(segment(\"don't \\u05d0\\u05d1'\"))\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(["don't", " ", "אב'"])
+
+
+def test_differential_hebrew_quote_fuzz():
+    """WB7a/b/c (Hebrew letters with single/double quotes, with and without
+    combining marks in between) — the fast path attaches the terminal
+    single quote after matching, so fuzz exactly that neighbourhood."""
+    rng = random.Random(2024)
+    alphabet = "אבג'\"ְ́­‍ a1.,_カ"
+    for _ in range(3000):
+        s = "".join(rng.choices(alphabet, k=rng.randint(0, 24)))
+        assert segment(s) == segment_slow(s), repr(s)
+
+
+def test_wordlike_unicode_letters_and_digits():
+    toks = segment("Grüße, ١٢٣ — 東京!")
+    assert wordlike(toks) == ["Grüße", "١٢٣", "東", "京"]
